@@ -2,29 +2,28 @@
 
 Round-1 item 9's done-bar: BQ benched at both scales — 10M x 768d is where
 the 32x memory win becomes decisive (packed corpus 960 MB vs 30 GB f32; an
-f32 corpus at 10M does not fit one chip's HBM at all). The serving path is
+f32 corpus at 10M x 768d is 30 GB). The serving path is
 ``DistributedFlatIndex(quantization=BQ)``: packed XOR+popcount Hamming
 shortlist (k*oversample) + bf16 rerank of the gathered shortlist +
 collective merge — the same path a BQ collection created through the gRPC
 surface runs (tests/test_api.py::test_core_bq_collection_via_rpc).
 
-At 10M a bf16 rerank copy (15 GB) would crowd HBM, so 10M runs rerank-free
+At 10M a bf16 rerank copy (15 GB) would crowd a 16 GB device, so 10M runs rerank-free
 (ranking = the random-hyperplane angle estimate alone — the honest
 memory-minimal configuration) AND with an f8 (e4m3) rerank copy (7.5 GB —
 fits beside the 960 MB codes); 1M runs with bf16 rerank and rerank-free.
-r04 methodology: recall on 512 queries, QPS median-of-5 after 2 warm
-rounds (the r03 entry claimed 1M/10M numbers that were never measured —
-this file's first real cluster-corpus run IS the r04 one).
+Methodology: recall on 512 queries, QPS median-of-5 after 2 warm
+rounds.
 Corpus: the same embedding-like cluster mixture the PQ/HNSW benches use
 (16k centers x sigma 0.35) — on i.i.d. gaussians the top-of-corpus cosine
 spread (~0.05) sits BELOW the 768-bit Hamming angle resolution (~0.06
-rad), so BQ ranking is noise for ANY implementation (measured recall@10
+rad), so BQ ranking is noise for ANY implementation (recall@10
 0.03-0.17); sign sketches need data whose neighbors are actually close in
 angle, which real embeddings are. Corpus slabs are generated on device,
 BQ-encoded, and freed — the f32 form never accumulates. Prints ONE JSON
 line (headline = the 10M row).
 
-Run manually on the TPU:  timeout 5400 python -u bench_bq.py
+Run on the GPU:  timeout 5400 python -u bench_bq.py
 """
 
 import json
@@ -44,9 +43,9 @@ def main():
 
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from coltt_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

@@ -3,7 +3,7 @@
 Each record carries two named vectors (a 768d "semantic" field and a
 256d "title" field); the query scores Σ ratio_f * normalize(dist_f) in
 one fused pass per field with a single top-k over the weighted sum —
-the TPU version of the reference's shard-goroutine CFLAT
+the batched-device version of the reference's shard-goroutine CFLAT
 (experimental/multi_vector_vertex.go:85-138, always-parallel).
 
 Reference anchor: the reference publishes no CFLAT latency; its FLAT
@@ -11,7 +11,7 @@ anchor (20-30 ms/query at 1M x 128d) is the nearest published number,
 and CFLAT here does ~7.9x those FLOPs (768+256 dims, two scans).
 
 Prints ONE JSON line (secondary bench; the driver's headline stays
-bench.py). Run manually on the TPU:  timeout 3600 python -u bench_cflat.py
+bench.py). Run on the GPU:  timeout 3600 python -u bench_cflat.py
 """
 
 import json
@@ -30,9 +30,9 @@ def main():
 
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from coltt_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 

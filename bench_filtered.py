@@ -27,10 +27,9 @@ def log(*a):
 def main():
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from coltt_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
 
     import coltt_tpu.store.flat as flat_mod

@@ -2,12 +2,12 @@
 
 Reference anchor: 0.87 ms/query on 1M x 128d, single query at a time
 (UPDATE-LOG.md:142) => ~1150 QPS. Here the graph is built on device with
-``bulk_build_clustered`` (k-means blocks + heuristic select, the MXU
+``bulk_build_clustered`` (k-means blocks + heuristic select, the matmul
 ingest path; ``--beam`` selects the older gather-bound beam builder) and
 searched with the batched beam kernel (bf16 vectors).
 
 Prints ONE JSON line (secondary bench; the driver's headline stays bench.py).
-Run manually on the TPU:  timeout 5400 python -u bench_hnsw.py
+Run on the GPU:  timeout 5400 python -u bench_hnsw.py
 """
 
 import json
@@ -26,9 +26,9 @@ def main():
 
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from coltt_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
 
     from coltt_tpu.ops.distance import Metric, scan_distances

@@ -2,11 +2,11 @@
 
 Corpus: embedding-like structure — a 16k-center cluster mixture with a
 per-dim spectrum decay (i^-0.5). On pure i.i.d. gaussians PQ recall is
-meaningless for ANY implementation (distance concentration: measured
-recall@10 ~0.10 at 10M; the reference never measured PQ recall at all and
-later removed its PQ), while structured data is both realistic and what
-OPQ is built for: measured at 262k x 128d, plain PQ 0.32 -> OPQ 0.62
-(os=1), 0.83 -> 0.98 (os=4 + bf16 rerank).
+meaningless for ANY implementation (distance concentration: recall@10
+~0.10 at 10M; the reference never measured PQ recall at all and later
+removed its PQ), while structured data is both realistic and what OPQ is
+built for: at 262k x 128d, plain PQ 0.32 -> OPQ 0.62 (os=1), 0.83 -> 0.98
+(os=4 + bf16 rerank).
 
 The corpus never exists in fp32 anywhere at once: it is generated on
 device in 1M-row chunks; each chunk is (a) scored exactly in f32 against
@@ -28,7 +28,7 @@ the driver's headline bench stays bench.py). Baseline anchor: the
 reference's PQ era published "<14 ms @ 50k rows" (UPDATE-LOG.md:193) =
 ~71 QPS on a corpus 200x smaller.
 
-Run manually on the TPU:  timeout 5400 python -u bench_pq.py
+Run on the GPU:  timeout 5400 python -u bench_pq.py
 """
 
 import json
@@ -121,9 +121,9 @@ def main():
 
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from coltt_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
     from jax import lax
 

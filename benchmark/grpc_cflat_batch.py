@@ -1,9 +1,8 @@
 """CFLAT batch serving benchmark: VectorSearchBatch QPS through real gRPC.
 
-The round-2 gap (VERDICT.md weak #6): the in-process CFLAT kernel runs
-~15k QPS but the reference-parity VectorSearch RPC carries ONE multi-
-vector query per call, capping served multi-vector traffic at the
-173-323 QPS single-RPC rates. VectorSearchBatch (beyond the reference
+The reference-parity VectorSearch RPC carries ONE multi-vector query per
+call, capping served multi-vector traffic at single-RPC rates.
+VectorSearchBatch (beyond the reference
 surface, mirroring edge/core SearchBatch) carries a [count, dim_f] raw-f32
 block per included field and returns columnar hits.
 
@@ -12,6 +11,9 @@ Manual-run integration harness (needs a live experimental server):
     python -m coltt_tpu --config coltt.toml &    # mode = "experimental"
     python benchmark/grpc_cflat_batch.py --n 1000000 --batch 1024 \
         --concurrency 4 --rounds 8
+
+The client never touches a JAX device (it only imports the package for
+the proto stubs), so the server stays the one process on the card.
 """
 
 import argparse

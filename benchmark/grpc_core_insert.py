@@ -11,6 +11,9 @@ Manual-run integration harness (needs a live server; see README):
 
     python -m coltt_tpu --config coltt.toml &        # mode = "root"
     python benchmark/grpc_core_insert.py --n 100000 --one-by-one-n 5000
+
+The client never touches a JAX device (it only imports the package for
+the proto stubs), so the server stays the one process on the card.
 """
 
 import argparse

@@ -10,6 +10,9 @@ Manual-run integration harness (needs a live server; see README):
 
     python -m coltt_tpu --config coltt.toml &        # mode = "edge"
     python benchmark/grpc_edge_search.py --n 100000 --queries 500
+
+The client never touches a JAX device (it only imports the package for
+the proto stubs), so the server stays the one process on the card.
 """
 
 import argparse

@@ -1,16 +1,19 @@
-"""coltt-tpu: a TPU-native vector-search framework.
+"""coltt: an accelerator-native vector-search framework in JAX.
 
 A from-scratch re-design of the capabilities of the reference system
-sjy-dv/coltt (a Go vector database; see SURVEY.md) for TPU hardware:
+sjy-dv/coltt (a Go vector database; see SURVEY.md) for accelerators (it
+runs on NVIDIA GPUs; the README says where it comes from):
 
 - vectors live as dense, quantized device arrays sharded over a
   ``jax.sharding.Mesh`` instead of pointer-graphs in goroutine-sharded maps,
-- FLAT / filtered / hybrid / multi-vector search are batched MXU matmul
-  kernels + streaming top-k instead of per-pair SIMD distance calls,
+- FLAT / filtered / hybrid / multi-vector search are batched tensor-core
+  matrix products + streaming top-k instead of per-pair SIMD distance
+  calls,
 - HNSW becomes fixed-shape adjacency arrays traversed by a vectorized,
   batched beam search under ``lax.while_loop``,
 - the 16-way goroutine shard scan becomes a sharded axis with collective
-  top-k merges over ICI/DCN,
+  top-k merges over the device interconnect (and the network across
+  hosts),
 - persistence keeps the reference's shapes: a segmented WAL + bitcask-style
   KV for the core commit log, and a 3-object checkpoint per collection for
   edge/experimental (metadata JSON + vectors + inverted index).

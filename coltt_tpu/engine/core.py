@@ -26,7 +26,6 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-import msgpack
 import numpy as np
 
 from coltt_tpu.engine.errors import EngineError, ErrorCode
@@ -39,6 +38,7 @@ from coltt_tpu.storage.kv import KV
 from coltt_tpu.store.hnsw import HnswConfig, HnswIndex
 from coltt_tpu.utils.logging import get_logger
 from coltt_tpu.utils.snowflake import SnowflakeNode
+from coltt_tpu.utils import msgcodec
 
 log = get_logger("core")
 
@@ -109,7 +109,7 @@ class CoreEngine:
         # RegistCollectionStManager parity: registry -> state manager
         raw = self.kv.get(_REGISTRY_KEY)
         self._registry: Dict[str, dict] = (
-            {s["name"]: s for s in msgpack.unpackb(raw, raw=False)} if raw else {}
+            {s["name"]: s for s in msgcodec.unpackb(raw)} if raw else {}
         )
         for name in self._registry:
             self.state.add(name)
@@ -118,7 +118,7 @@ class CoreEngine:
     def _save_registry(self) -> None:
         self.kv.put(
             _REGISTRY_KEY,
-            msgpack.packb(list(self._registry.values()), use_bin_type=True),
+            msgcodec.packb(list(self._registry.values())),
         )
 
     def _snapshot_path(self, name: str) -> str:
@@ -256,9 +256,8 @@ class CoreEngine:
                 col.metadata[slot] = metadata
                 col.id_to_slot[ext_id] = slot
                 col.slot_to_id[slot] = ext_id
-                record = msgpack.packb(
+                record = msgcodec.packb(
                     {"id": ext_id, "vector": v.tobytes(), "metadata": metadata},
-                    use_bin_type=True,
                 )
                 batch = self.kv.new_batch()
                 batch.put(self._log_key(name, ext_id), record)
@@ -342,10 +341,9 @@ class CoreEngine:
                 batch = self.kv.new_batch()
                 pending = 0
                 for i in range(n):
-                    record = msgpack.packb(
+                    record = msgcodec.packb(
                         {"id": ext_ids[i], "vector": vecs[i].tobytes(),
                          "metadata": metadatas[i]},
-                        use_bin_type=True,
                     )
                     batch.put(self._log_key(name, ext_ids[i]), record)
                     pending += 1
@@ -546,14 +544,14 @@ class CoreEngine:
             "inverted": col.inverted.to_bytes(),
         }
         with open(self._index_path(name), "wb") as f:
-            f.write(msgpack.packb(side, use_bin_type=True))
+            f.write(msgcodec.packb(side))
         self.kv.delete(self._dirty_key(name))  # snapshot now authoritative
 
     def _load_snapshot(self, name: str, spec: CollectionSpec) -> _CoreCollection:
         with open(self._snapshot_path(name), "rb") as f:
             hnsw = HnswIndex.load(f)
         with open(self._index_path(name), "rb") as f:
-            side = msgpack.unpackb(f.read(), raw=False)
+            side = msgcodec.unpackb(f.read())
         col = _CoreCollection(
             spec=spec,
             hnsw=hnsw,
@@ -573,7 +571,7 @@ class CoreEngine:
         )
         prefix = f"{name}{_SEP}".encode()
         recs = [
-            msgpack.unpackb(self.kv.get(key), raw=False)
+            msgcodec.unpackb(self.kv.get(key))
             for key in self.kv.keys(prefix)
         ]
         n = len(recs)

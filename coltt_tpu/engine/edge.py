@@ -9,10 +9,11 @@ LoadCollection rehydrates them, edge/edge.go:304-400; Flush re-uploads,
 upsert/delete with schema analysis, and Search with optional filter
 expression (:610-690) returning 0-100 scores + metadata.
 
-TPU-native deltas: the four quantization-specific Go spaces collapse into
-one FlatStore parameterized by dtype; the ``high_resource_avaliable``
-(highCpu) toggle selects the ApproxTopK high-throughput scan (the exact
-scan is already fully MXU-parallel); candidate bitmaps gate a
+Deltas from the reference: the four quantization-specific Go spaces
+collapse into one FlatStore parameterized by dtype; the
+``high_resource_avaliable`` (highCpu) toggle selects the high-throughput
+scan (the fused kernel, else ApproxTopK; the exact scan is already one
+parallel matrix product); candidate bitmaps gate a
 gather-vs-masked-scan switch instead of shard-bucketed goroutines.
 """
 
@@ -24,7 +25,6 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-import msgpack
 import numpy as np
 
 from coltt_tpu.engine.batcher import ScanBatcher
@@ -37,6 +37,7 @@ from coltt_tpu.ops.distance import Metric
 from coltt_tpu.storage.objectstore import LocalObjectStore
 from coltt_tpu.store.flat import FlatStore
 from coltt_tpu.utils.logging import get_logger
+from coltt_tpu.utils import msgcodec
 
 import io
 
@@ -319,9 +320,9 @@ class EdgeEngine:
         """``high_resource`` (the reference's highCpu goroutine fan-out
         toggle, edge/f16_vectorstore.go:138) here selects the high-throughput
         scan: the fused Pallas kernel where the store shape supports it
-        (int8 MXU + in-VMEM bin selection, ops/scan_pallas.py) with an
-        ApproxTopK fallback (recall_target 0.99). The default scan is
-        exact."""
+        (int8 tensor cores + in-register bin selection, ops/scan_pallas.py)
+        with an ApproxTopK fallback (recall_target 0.99). The default scan
+        is exact."""
         with self._mu:
             self.state.require_loaded(name)
             col = self._collections[name]
@@ -463,8 +464,8 @@ class EdgeEngine:
 
     # -- checkpoint objects -------------------------------------------------------
     def _flush_objects(self, name: str, col: _EdgeCollection) -> None:
-        md_blob = msgpack.packb(
-            [[slot, md] for slot, md in col.metadata.items()], use_bin_type=True
+        md_blob = msgcodec.packb(
+            [[slot, md] for slot, md in col.metadata.items()]
         )
 
         def write_vertex(f):
@@ -496,7 +497,7 @@ class EdgeEngine:
     @classmethod
     def _decode_vertex_stream(cls, f, *, mesh=None):
         md_len = int.from_bytes(f.read(8), "big")
-        md_items = msgpack.unpackb(f.read(md_len), raw=False)
+        md_items = msgcodec.unpackb(f.read(md_len))
         metadata = {int(slot): md for slot, md in md_items}
         store = FlatStore.load(f, mesh=mesh)
         return store, metadata
@@ -504,7 +505,7 @@ class EdgeEngine:
     @staticmethod
     def _decode_vertex(raw: bytes):
         md_len = int.from_bytes(raw[:8], "big")
-        md_items = msgpack.unpackb(raw[8 : 8 + md_len], raw=False)
+        md_items = msgcodec.unpackb(raw[8 : 8 + md_len])
         metadata = {int(slot): md for slot, md in md_items}
         store = FlatStore.load(io.BytesIO(raw[8 + md_len :]))
         return store, metadata

@@ -21,7 +21,6 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import msgpack
 import numpy as np
 
 from coltt_tpu.engine.errors import EngineError, ErrorCode
@@ -31,6 +30,7 @@ from coltt_tpu.index.schema import CollectionSchema, FieldType, SchemaError
 from coltt_tpu.storage.objectstore import LocalObjectStore
 from coltt_tpu.store.multivec import MultiVectorStore
 from coltt_tpu.utils.logging import get_logger
+from coltt_tpu.utils import msgcodec
 
 log = get_logger("experimental")
 
@@ -132,7 +132,7 @@ class ExperimentalEngine:
                 raise EngineError(f"collection {name!r} checkpoint incomplete")
             schema = CollectionSchema.from_dict(json.loads(raw_meta))
             md_len = int.from_bytes(raw_vertex[:8], "big")
-            side = msgpack.unpackb(raw_vertex[8 : 8 + md_len], raw=False)
+            side = msgcodec.unpackb(raw_vertex[8 : 8 + md_len])
             store = MultiVectorStore.load(
                 io.BytesIO(raw_vertex[8 + md_len :]), mesh=self._mesh
             )
@@ -342,12 +342,11 @@ class ExperimentalEngine:
     def _flush_objects(self, name: str, col: _MvCollection) -> None:
         buf = io.BytesIO()
         col.store.save(buf)
-        side = msgpack.packb(
+        side = msgcodec.packb(
             {
                 "metadata": [[s, m] for s, m in col.metadata.items()],
                 "inverted": col.inverted.to_bytes(),
             },
-            use_bin_type=True,
         )
         vertex = len(side).to_bytes(8, "big") + side + buf.getvalue()
         self.objects.put_object(

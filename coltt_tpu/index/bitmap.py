@@ -13,14 +13,14 @@ Design: ids here are dense *slot* indices into the store's row axis (not
 sparse u64 ids — the slot allocator already densifies), so flat word-array
 bitsets beat roaring: every AND/OR/NOT is a contiguous SIMD ``np.bitwise_*``
 over uint64 words, and the result converts straight into the gather-index /
-mask arrays the TPU scan kernels consume. Popcount is ``np.bitwise_count``.
+mask arrays the device scans consume. Popcount is ``np.bitwise_count``.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-import msgpack
 import numpy as np
 
 from coltt_tpu.index.filter import (
@@ -30,72 +30,94 @@ from coltt_tpu.index.filter import (
     LogicalOp,
     Op,
 )
+from coltt_tpu.utils import msgcodec
 
 _WORD_BITS = 64
 
 
+# windowed serialized form: this tag, the base word index (u64 LE), then
+# the words. Its length is 1 mod 8, the flat form's 0 mod 8.
+_WINDOW_TAG = b"\x01"
+
+
 class Bitset:
-    """Growable flat bitset over dense slot ids."""
+    """Growable bitset over dense slot ids: a window of uint64 words that
+    starts at word ``base``. A set of nearby ids (a primary key's single
+    slot) takes a word or two wherever it sits, so an index over a unique
+    field stays linear in the number of rows."""
 
-    __slots__ = ("words",)
+    __slots__ = ("words", "base")
 
-    def __init__(self, words: Optional[np.ndarray] = None):
+    def __init__(self, words: Optional[np.ndarray] = None, base: int = 0):
         self.words = (
             np.zeros(1, np.uint64) if words is None else np.asarray(words, np.uint64)
         )
+        self.base = int(base)
 
     # -- capacity ----------------------------------------------------------
     def _ensure(self, bit: int) -> None:
-        need = bit // _WORD_BITS + 1
-        if need > len(self.words):
-            grown = np.zeros(max(need, 2 * len(self.words)), np.uint64)
-            grown[: len(self.words)] = self.words
-            self.words = grown
+        w = bit // _WORD_BITS
+        lo, hi = self.base, self.base + len(self.words)
+        if lo <= w < hi:
+            return
+        if not self.words.any():
+            self.base, self.words = w, np.zeros(1, np.uint64)
+            return
+        # grow toward w, at least doubling, so appends stay amortized O(1)
+        size = len(self.words)
+        if w >= hi:
+            new_lo, new_hi = lo, max(w + 1, lo + 2 * size)
+        else:
+            new_lo, new_hi = max(0, min(w, hi - 2 * size)), hi
+        grown = np.zeros(new_hi - new_lo, np.uint64)
+        grown[lo - new_lo:hi - new_lo] = self.words
+        self.base, self.words = new_lo, grown
 
     @staticmethod
-    def _aligned(a: "Bitset", b: "Bitset") -> Tuple[np.ndarray, np.ndarray]:
-        la, lb = len(a.words), len(b.words)
-        if la == lb:
-            return a.words, b.words
-        n = max(la, lb)
-        wa = np.zeros(n, np.uint64)
-        wa[:la] = a.words
-        wb = np.zeros(n, np.uint64)
-        wb[:lb] = b.words
-        return wa, wb
+    def _aligned(a: "Bitset", b: "Bitset") -> Tuple[np.ndarray, np.ndarray, int]:
+        if a.base == b.base and len(a.words) == len(b.words):
+            return a.words, b.words, a.base
+        lo = min(a.base, b.base)
+        hi = max(a.base + len(a.words), b.base + len(b.words))
+        wa = np.zeros(hi - lo, np.uint64)
+        wa[a.base - lo:a.base - lo + len(a.words)] = a.words
+        wb = np.zeros(hi - lo, np.uint64)
+        wb[b.base - lo:b.base - lo + len(b.words)] = b.words
+        return wa, wb, lo
 
     # -- single-bit ops ----------------------------------------------------
     def set(self, bit: int) -> None:
         self._ensure(bit)
-        self.words[bit // _WORD_BITS] |= np.uint64(1) << np.uint64(bit % _WORD_BITS)
+        self.words[bit // _WORD_BITS - self.base] |= (
+            np.uint64(1) << np.uint64(bit % _WORD_BITS)
+        )
 
     def clear(self, bit: int) -> None:
-        if bit // _WORD_BITS < len(self.words):
-            self.words[bit // _WORD_BITS] &= ~(
-                np.uint64(1) << np.uint64(bit % _WORD_BITS)
-            )
+        w = bit // _WORD_BITS - self.base
+        if 0 <= w < len(self.words):
+            self.words[w] &= ~(np.uint64(1) << np.uint64(bit % _WORD_BITS))
 
     def test(self, bit: int) -> bool:
-        w = bit // _WORD_BITS
-        if w >= len(self.words):
+        w = bit // _WORD_BITS - self.base
+        if not 0 <= w < len(self.words):
             return False
         return bool((self.words[w] >> np.uint64(bit % _WORD_BITS)) & np.uint64(1))
 
     # -- set algebra -------------------------------------------------------
     def __and__(self, other: "Bitset") -> "Bitset":
-        wa, wb = self._aligned(self, other)
-        return Bitset(np.bitwise_and(wa, wb))
+        wa, wb, base = self._aligned(self, other)
+        return Bitset(np.bitwise_and(wa, wb), base)
 
     def __or__(self, other: "Bitset") -> "Bitset":
-        wa, wb = self._aligned(self, other)
-        return Bitset(np.bitwise_or(wa, wb))
+        wa, wb, base = self._aligned(self, other)
+        return Bitset(np.bitwise_or(wa, wb), base)
 
     def andnot(self, other: "Bitset") -> "Bitset":
-        wa, wb = self._aligned(self, other)
-        return Bitset(np.bitwise_and(wa, np.bitwise_invert(wb)))
+        wa, wb, base = self._aligned(self, other)
+        return Bitset(np.bitwise_and(wa, np.bitwise_invert(wb)), base)
 
     def copy(self) -> "Bitset":
-        return Bitset(self.words.copy())
+        return Bitset(self.words.copy(), self.base)
 
     # -- queries -----------------------------------------------------------
     def count(self) -> int:
@@ -107,38 +129,54 @@ class Bitset:
     def ids(self) -> np.ndarray:
         """Dense int32 array of set bit positions, ascending."""
         bits = np.unpackbits(self.words.view(np.uint8), bitorder="little")
-        return np.flatnonzero(bits).astype(np.int32)
+        return (np.flatnonzero(bits) + self.base * _WORD_BITS).astype(np.int32)
 
     def mask(self, n: int) -> np.ndarray:
         """Boolean mask of length n (the masked-scan form for the device)."""
         bits = np.unpackbits(self.words.view(np.uint8), bitorder="little")
         out = np.zeros(n, bool)
-        m = min(n, len(bits))
-        out[:m] = bits[:m]
+        start = self.base * _WORD_BITS
+        m = min(n - start, len(bits))
+        if m > 0:
+            out[start:start + m] = bits[:m]
         return out
 
     @classmethod
     def from_ids(cls, ids: Iterable[int]) -> "Bitset":
         ids = np.asarray(list(ids), np.int64)
-        bs = cls()
-        if len(ids):
-            bs._ensure(int(ids.max()))
-            np.bitwise_or.at(
-                bs.words,
-                ids // _WORD_BITS,
-                np.uint64(1) << (ids % _WORD_BITS).astype(np.uint64),
-            )
-        return bs
+        if not len(ids):
+            return cls()
+        base = int(ids.min()) // _WORD_BITS
+        words = np.zeros(int(ids.max()) // _WORD_BITS - base + 1, np.uint64)
+        np.bitwise_or.at(
+            words,
+            ids // _WORD_BITS - base,
+            np.uint64(1) << (ids % _WORD_BITS).astype(np.uint64),
+        )
+        return cls(words, base)
 
     # -- serialization -----------------------------------------------------
     def to_bytes(self) -> bytes:
-        trimmed = np.trim_zeros(self.words, "b")
-        return trimmed.tobytes()
+        """The nonzero window of words. A window starting at word 0 keeps
+        the flat form (raw words, trailing zero words trimmed); any other
+        is prefixed by ``_WINDOW_TAG`` and its base word index."""
+        nz = np.flatnonzero(self.words)
+        if not len(nz):
+            return b""
+        lo, hi = int(nz[0]), int(nz[-1]) + 1
+        body = self.words[lo:hi].tobytes()
+        base = self.base + lo
+        if base == 0:
+            return body
+        return _WINDOW_TAG + struct.pack("<Q", base) + body
 
     @classmethod
     def from_bytes(cls, b: bytes) -> "Bitset":
         if not b:
             return cls()
+        if len(b) % 8 == 1 and b[:1] == _WINDOW_TAG:
+            (base,) = struct.unpack_from("<Q", b, 1)
+            return cls(np.frombuffer(b, np.uint64, offset=9).copy(), base)
         return cls(np.frombuffer(b, np.uint64).copy())
 
 
@@ -285,11 +323,11 @@ class InvertedIndex:
                 for fld, values in self.shards.items()
             },
         }
-        return msgpack.packb(payload, use_bin_type=True)
+        return msgcodec.packb(payload)
 
     @classmethod
     def from_bytes(cls, b: bytes) -> "InvertedIndex":
-        payload = msgpack.unpackb(b, raw=False, strict_map_key=False)
+        payload = msgcodec.unpackb(b)
         idx = cls(string_normalize=payload.get("string_normalize", False))
         idx.live = Bitset.from_bytes(payload["live"])
         for fld, entries in payload["shards"].items():

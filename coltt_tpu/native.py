@@ -1,7 +1,7 @@
 """ctypes bindings for the native IO library (native/colttio.cpp).
 
 The reference spends its native budget on SIMD distance kernels
-(``pkg/distance/simd`` C++-to-asm); here distance runs on the TPU, so the
+(``pkg/distance/simd`` C++-to-asm); here distance runs on the device, so the
 native layer covers the host-side hot loops instead: WAL chunk framing,
 record replay, and CRC32 (``pkg/wal/segment.go`` roles). The Python
 implementations in :mod:`coltt_tpu.storage.wal` remain as the portable

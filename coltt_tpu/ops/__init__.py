@@ -1,10 +1,10 @@
 """Math / primitive layer.
 
-TPU-native counterpart of the reference's L1 primitive layer
+Accelerator-native counterpart of the reference's L1 primitive layer
 (``pkg/distance`` SIMD kernels, ``pkg/compresshelper`` f16/bf16/f8 codecs,
 ``pkg/distancepq`` PQ distance registry — see SURVEY.md §2.5). Instead of
 per-pair SIMD calls, everything here is batched: distances are
-``[Q, D] x [N, D] -> [Q, N]`` MXU matmuls, quantization is dtype-level
+``[Q, D] x [N, D] -> [Q, N]`` matrix products, quantization is dtype-level
 (XLA-fusable) with per-row scales.
 """
 

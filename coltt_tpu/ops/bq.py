@@ -6,9 +6,9 @@ implemented there; the closest shipped machinery is the vendored popcount
 bitset (``pkg/bitset/popcnt_amd64.s``) and the hamming distance registered
 in ``pkg/distancepq/distance.go:52-86``. This module completes the mode.
 
-TPU-native design: each vector becomes its sign bits packed into uint32
+Design: each vector becomes its sign bits packed into uint32
 words (``[N, ceil(D/32)]`` — 32x smaller than f32, 8x smaller than i8).
-Search is a streaming XOR + ``lax.population_count`` scan (pure VPU work;
+Search is a streaming XOR + ``lax.population_count`` scan (pure elementwise work;
 the packed corpus is so small the scan is compute-bound, not HBM-bound),
 shortlisting ``k * oversample`` rows by Hamming distance, then an optional
 rerank of the gathered shortlist against a higher-precision copy (the same
@@ -32,7 +32,8 @@ import numpy as np
 from jax import lax
 
 # [Q, block, W] popcount transient budget (pre-fusion upper bound); blocks
-# bound HBM next to a loaded corpus the same way ops.topk blocks do.
+# bound device memory next to a loaded corpus the same way ops.topk
+# blocks do (sized for a 16 GB device; ROADMAP D3 re-derives it).
 _BQ_TRANSIENT_BYTES = 1 << 30
 _ALIGN = 8192
 
@@ -95,16 +96,15 @@ def _unpack_pm1(packed, d32: int):
     return (2 * bits.astype(jnp.int8) - 1).reshape(packed.shape[0], d32)
 
 
-def _mxu_hamming_block(qi, cp, valid):
-    """MXU form of the Hamming scan: with rows/queries mapped to ±1,
+def _matmul_hamming_block(qi, cp, valid):
+    """Matmul form of the Hamming scan: with rows/queries mapped to ±1,
     ``dot = W*32 - 2*hamming`` — one s8xs8->s32 contraction at the int8
-    MXU rate (~394 TOPS on v5e) instead of a VPU popcount chain. Padding
+    tensor-core rate instead of a popcount chain. Padding
     bits (dim % 32) decode to -1 on BOTH sides, adding the same constant
     to every dot — ranking and the recovered Hamming are exact. The
     unpacked [B, W*32] block is a bounded transient; packed codes remain
-    the only persistent form, so the 32x memory win stands. Measured at
-    10M x 768d, Q=512 (bench_bq.py): the popcount path served 156-160
-    QPS; this path is matmul-bound (~30 TOP per 2048-query batch)."""
+    the only persistent form, so the 32x memory win stands. This path is
+    matmul-bound (~30 TOP per 2048-query batch at 10M x 768d)."""
     d32 = qi.shape[1]
     cs = _unpack_pm1(cp, d32)
     dots = lax.dot_general(
@@ -127,23 +127,23 @@ def bq_scan_neg_topk(queries_packed, codes_packed, valid, *, k: int,
     ids [Q, k] int32)`` — negated so larger is better, matching every other
     ``*_neg_topk`` merge key (invalid rows carry -inf / id untrimmed).
 
-    Approximation disclosure: on TPU, scans large enough to take the
-    multi-block MXU path use ``lax.approx_max_k`` (recall_target 0.95)
+    Approximation disclosure: scans large enough to take the multi-block
+    matmul path use ``lax.approx_max_k`` (recall_target 0.95)
     for the per-block selection — candidates at the shortlist TAIL may be
     swapped for equal-or-near Hamming ties, which is recall-free when the
     caller oversamples for a rerank but makes the raw result set
     approximate. Pass ``exact=True`` to force exact per-block selection
     (FlatStore does this automatically when ``bq_rerank=False``, where
-    these values ARE the final ranking). On CPU both forms lower to exact
-    selection.
+    these values ARE the final ranking). On GPU and CPU, XLA lowers both
+    forms to exact selection.
     """
     q, w = queries_packed.shape
     n = codes_packed.shape[0]
     kk = min(k, n)
 
-    # Large scans take the MXU path (_mxu_hamming_block): the popcount
-    # form is VPU-bound and, budget-blocked at 10M rows, served only
-    # ~160 QPS; the ±1-matmul form rides the int8 MXU. Block size bounds
+    # Large scans take the matmul path (_matmul_hamming_block): the
+    # popcount form is elementwise-bound and, budget-blocked at 10M rows,
+    # slow; the ±1-matmul form rides the int8 tensor cores. Block size bounds
     # the unpacked [B, W*32] int8 + [Q, B] s32 transients together.
     if q * n * w * 4 > _BQ_TRANSIENT_BYTES and n % _ALIGN == 0:
         d32 = w * 32
@@ -157,10 +157,10 @@ def bq_scan_neg_topk(queries_packed, codes_packed, valid, *, k: int,
         if exact:
             kb = min(kk, block)
         else:
-            # capped per-block keep (the r4 deep-oversample fix): a
-            # k*64-wide per-block ApproxTopK plus a blocks*kk-wide final
-            # sort dominated the whole 10M scan (os64 measured 324 QPS vs
-            # os16's 2,043 — selection cost, not the rerank gather). The
+            # capped per-block keep (the deep-oversample fix): a
+            # k*64-wide per-block selection plus a blocks*kk-wide final
+            # sort dominated the whole 10M scan (selection cost, not the
+            # rerank gather). The
             # global Hamming top-kk is spread ~kk/blocks per block, so
             # keeping 8x that mean (floor 64) per block preserves it
             # unless one block holds >8x its share of the winners; a
@@ -170,17 +170,17 @@ def bq_scan_neg_topk(queries_packed, codes_packed, valid, *, k: int,
             # uncapped width.
             kb = min(kk, block, max(64, -(-8 * kk // blocks)))
         if blocks == 1:
-            neg = _mxu_hamming_block(qi, codes_packed, valid)
+            neg = _matmul_hamming_block(qi, codes_packed, valid)
             return lax.top_k(neg, kk)
 
-        def mxu_body(i):
+        def matmul_body(i):
             sl = lambda a: lax.dynamic_slice_in_dim(a, i * block, block,
                                                     axis=0)
-            neg = _mxu_hamming_block(
+            neg = _matmul_hamming_block(
                 qi, sl(codes_packed),
                 None if valid is None else sl(valid),
             )
-            # per-block selection is the wall once the scan rides the MXU
+            # per-block selection is the wall once the scan is a matmul
             # (an exact [Q, ~100k] sort per block dominated the batch);
             # ApproxTopK here is nearly free recall-wise because integer
             # Hamming distances are tie-saturated — a dropped candidate at
@@ -194,7 +194,7 @@ def bq_scan_neg_topk(queries_packed, codes_packed, valid, *, k: int,
                 vals, idx = lax.top_k(neg, kb)
             return vals, (idx + i * block).astype(jnp.int32)
 
-        vals, ids = lax.map(mxu_body, jnp.arange(blocks))
+        vals, ids = lax.map(matmul_body, jnp.arange(blocks))
         vals = jnp.moveaxis(vals, 0, 1).reshape(q, blocks * kb)
         ids = jnp.moveaxis(ids, 0, 1).reshape(q, blocks * kb)
         negh, midx = lax.top_k(vals, kk)

@@ -4,19 +4,19 @@ Reference parity: ``pkg/distance`` (``space.go:40-48`` runtime AVX/SSE/go
 dispatch; C++ SIMD sources ``pkg/distance/simd/cpp/{avx,sse}.cpp`` computing
 euclidean_distance_squared / manhattan_distance / cosine 1 - dot/sqrt(nn)).
 
-TPU-native design: the reference calls a SIMD kernel once per vector *pair*
-inside Go loops; here a whole scan is one ``[Q, D] x [N, D] -> [Q, N]``
-contraction on the MXU. Cosine and (squared) euclidean both reduce to the
+Design: the reference calls a SIMD kernel once per vector *pair* inside Go
+loops; here a whole scan is one ``[Q, D] x [N, D] -> [Q, N]`` contraction
+(a tensor-core matrix product). Cosine and (squared) euclidean both reduce to the
 same dot-product matmul plus elementwise epilogue using precomputed squared
 norms, so the quantized codes are read from HBM exactly once:
 
     cosine    d = 1 - dot / (|q| * sqrt(sqnorm))        (same as avx.cpp)
     euclidean d = |q|^2 + sqnorm - 2 * dot              (squared, like the ref)
-    manhattan d = sum |q - v|   (VPU path, chunked; kernels-only in the ref)
+    manhattan d = sum |q - v|   (elementwise, chunked; kernels-only in the ref)
 
 Per-row dequant scales fold into the epilogue: dot(q, codes*scale) =
 (q @ codes^T) * scale^T. Invalid (tombstoned) rows get +inf distance, the
-TPU analogue of the reference skipping deleted map entries.
+analogue of the reference skipping deleted map entries.
 """
 
 from __future__ import annotations
@@ -49,16 +49,30 @@ class Metric(enum.IntEnum):
 _EPS = 1e-30
 
 
+def quantize_queries_i8(queries, *, per_query: bool = True):
+    """Symmetric int8 query quantization: ``(codes int8, scale f32)`` with
+    ``codes = round(q * (127 / max|q|))`` per query (``per_query``) or over
+    the whole batch, and ``scale = max|q| / 127``.
+
+    The codes come from ONE division per scale and a multiply per element,
+    so they are bit-identical on every backend and to a numpy reference
+    doing the same: XLA rewrites a division by a constant or a broadcast
+    into a multiply by its reciprocal, which rounds differently."""
+    qmax = jnp.max(jnp.abs(queries), axis=-1 if per_query else None,
+                   keepdims=per_query)
+    inv = jnp.where(qmax > 0, 127.0 / jnp.where(qmax > 0, qmax, 1.0), 1.0)
+    codes = jnp.round(queries * inv).clip(-127, 127).astype(jnp.int8)
+    return codes, 1.0 / inv
+
+
 def _dot_scores(queries, codes, scale, compute_dtype):
     """(queries @ dequant(codes).T) with f32 accumulation: [Q, N]."""
     if codes.dtype == jnp.int8:
-        # int8 MXU path (~1.6x the bf16 rate on v5e): queries are quantized
-        # per-row symmetric int8 on the fly; both scales fold into the f32
-        # epilogue. Query rounding error is ~1/254 relative — below the
-        # stored-row quantization error and removed entirely by rerank.
-        qmax = jnp.max(jnp.abs(queries), axis=-1, keepdims=True)
-        qscale = jnp.where(qmax > 0, qmax / 127.0, 1.0)
-        qi = jnp.round(queries / qscale).clip(-127, 127).astype(jnp.int8)
+        # int8 tensor-core path: queries are quantized per-row symmetric
+        # int8 on the fly; both scales fold into the f32 epilogue. Query
+        # rounding error is ~1/254 relative — below the stored-row
+        # quantization error and removed entirely by rerank.
+        qi, qscale = quantize_queries_i8(queries)
         dots = lax.dot_general(
             qi,
             codes,
@@ -89,7 +103,8 @@ def _dot_scores(queries, codes, scale, compute_dtype):
 
 
 def _manhattan(queries, codes, scale, row_chunk: int = 2048):
-    """Chunked sum|q - v| — bandwidth-bound VPU path, no matmul form."""
+    """Chunked sum|q - v| — bandwidth-bound elementwise path, no matmul
+    form."""
     n = codes.shape[0]
     chunk = min(row_chunk, n)
     if n % chunk != 0:

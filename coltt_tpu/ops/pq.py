@@ -6,32 +6,32 @@ Reference parity: the reference *reserved* PQ — ``Quantization_PQ`` in
 and the legacy PQ parameter structs ``pkg/models/hnsw_common.go`` — but never
 shipped an implementation (SURVEY.md §7 phase 9). Its 2024.11 releases did
 ship an earlier PQ (HNSW+PQ, <14 ms @ 50k) that was later removed. This
-module is the TPU-native realization of that reserved path.
+module is the accelerator-native realization of that reserved path.
 
-TPU-native design. Classic CPU ADC builds a per-query LUT and gathers
+Design. Classic CPU ADC builds a per-query LUT and gathers
 ``M`` table entries per stored row — a scalar-gather loop that maps terribly
-onto the MXU. Here:
+onto matrix units. Here:
 
 - **Training** is batched Lloyd's iterations over *all* ``M`` subspaces at
   once: assignment is one ``[M, S, dsub] x [M, K, dsub] -> [M, S, K]``
   batched matmul (argmin over centroids), and the centroid update is the
-  transposed one-hot matmul ``[M, K, S] x [M, S, dsub]`` — both MXU work,
+  transposed one-hot matmul ``[M, K, S] x [M, S, dsub]`` — both matmul work,
   chunked over the sample axis to bound memory. No data-dependent Python;
   one ``lax.scan`` over chunks inside a ``lax.fori_loop`` over iterations.
 - **Encoding** is the same batched assignment matmul, blocked over rows.
 - **Search** decompresses blocks *through the codebook gather* and feeds the
   standard fused scan: reconstruct ``[B, D]`` in bf16 (a ``take_along_axis``
   on the ``[K, M, dsub]`` table — B*M gathered subvectors), then the one
-  ``[Q, D] x [B, D] -> [Q, B]`` MXU contraction from ops.distance. For
+  ``[Q, D] x [B, D] -> [Q, B]`` contraction from ops.distance. For
   dot-decomposable metrics this is *numerically identical* to LUT-ADC
   (the reconstructed vector is exactly the concatenation of centroids), but
-  the arithmetic rides the systolic array instead of a gather per (row,
+  the arithmetic rides the tensor cores instead of a gather per (row,
   subspace, query). Stored-row norms are exact via the centroid-norm LUT:
   ``||v_hat||^2 = sum_m ||c[m, code]||^2``.
 
 Codes are ``[N, M] uint8`` — with M = D/8 subspaces that is 8 bytes per
-96 float32s, a 32x-96x HBM footprint reduction over f8/none; PQ is what lets
-a 10M x 768d corpus live on one chip (BASELINE.json config #4).
+96 float32s, a 32x-96x device-memory reduction over f8/none (BASELINE.json
+config #4 serves a 10M x 768d corpus this way).
 
 **Residual (coarse+PQ) mode** (``train_pq(coarse_centroids=C)``): a
 whole-vector k-means coarse quantizer (up to 65536 centroids, trained on
@@ -59,11 +59,11 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import msgpack
 import numpy as np
 from jax import lax
 
 from coltt_tpu.ops.distance import Metric, scan_distances
+from coltt_tpu.utils import msgcodec
 
 _CODEBOOK_MAGIC = b"CTTPQCB1"
 
@@ -210,12 +210,12 @@ class PQCodebook:
         """Project into the codebook's space (identity when no OPQ)."""
         if self.rotation is None:
             return x
-        return x @ self.rotation
+        return jnp.matmul(x, self.rotation, precision=lax.Precision.HIGHEST)
 
     def derotate(self, x: jax.Array) -> jax.Array:
         if self.rotation is None:
             return x
-        return x @ self.rotation.T
+        return jnp.matmul(x, self.rotation.T, precision=lax.Precision.HIGHEST)
 
     @property
     def m(self) -> int:
@@ -246,7 +246,7 @@ class PQCodebook:
                   "opq": self.rotation is not None,
                   "coarse": (0 if self.coarse is None
                              else int(self.coarse.shape[0]))}
-        hb = msgpack.packb(header, use_bin_type=True)
+        hb = msgcodec.packb(header)
         f.write(_CODEBOOK_MAGIC)
         f.write(len(hb).to_bytes(8, "big"))
         f.write(hb)
@@ -264,7 +264,7 @@ class PQCodebook:
         if magic != _CODEBOOK_MAGIC:
             raise ValueError("not a PQ codebook snapshot")
         hlen = int.from_bytes(f.read(8), "big")
-        h = msgpack.unpackb(f.read(hlen), raw=False)
+        h = msgcodec.unpackb(f.read(hlen))
         m, k, dsub = h["m"], h["k"], h["dsub"]
         cents = np.frombuffer(f.read(m * k * dsub * 4), np.float32)
         rot = None
@@ -523,9 +523,9 @@ def pq_encode(vectors, codebook: PQCodebook) -> Tuple[jax.Array, jax.Array]:
 #: take_along_axis pads dsub to 128 lanes, a 64x inflation at dsub=2, so
 #: at M=384 an unblocked 16384-row reconstruct is 3.2 GB (what OOM'd the
 #: 10M dsub=2 serving leg next to its 12.3 GB codes+cache steady state)
-#: 128 MB (r5, was 768 MB): after a ~12 GiB store loads, free HBM is
-#: fragmented — a block transient must fit a contiguous HOLE, not just
-#: the free total
+#: 128 MB: sized for a 16 GB device, where after a ~12 GiB store loads
+#: free memory is fragmented — a block transient must fit a contiguous
+#: HOLE, not just the free total (ROADMAP D3 re-derives it)
 _RECON_TRANSIENT_BYTES = 1 << 27
 
 
@@ -655,7 +655,10 @@ def pq_scan_neg_topk(
     metric = Metric.parse(metric)
     queries = jnp.asarray(queries, jnp.float32)
     if rotation is not None:
-        queries = queries @ rotation
+        # scores depend on it: full f32 (a GPU runs f32 matmuls as TF32
+        # by default)
+        queries = jnp.matmul(queries, rotation,
+                             precision=lax.Precision.HIGHEST)
     n = codes.shape[0]
     kk = min(k, n)
     if block_rows is None:
@@ -741,7 +744,10 @@ def pq_rescore_rows(queries, negd, ids, crow, centroids, *, k,
 
     queries = jnp.asarray(queries, jnp.float32)
     if rotation is not None:
-        queries = queries @ rotation
+        # scores depend on it: full f32 (a GPU runs f32 matmuls as TF32
+        # by default)
+        queries = jnp.matmul(queries, rotation,
+                             precision=lax.Precision.HIGHEST)
     qn, c = ids.shape
     nrows = crow.shape[0]
     m = crow.shape[1] - (_COARSE_BYTES if coarse is not None else 0)

@@ -7,10 +7,10 @@ The reference converts scalar-by-scalar in Go and computes distances on
 dequantized fp32 buffers ("storage-only compression, arithmetic in fp32",
 SURVEY.md §2.3).
 
-TPU-native design: quantization is a *dtype*, not a codec loop.
+Design: quantization is a *dtype*, not a codec loop.
 
 - f16  -> ``jnp.float16``   (IEEE binary16, bit-identical semantics)
-- bf16 -> ``jnp.bfloat16``  (truncated f32, the TPU's native matmul type)
+- bf16 -> ``jnp.bfloat16``  (truncated f32, the tensor cores' 16-bit float type)
 - f8   -> ``jnp.float8_e4m3fn`` (1-4-3 minifloat — same sign/exp/mantissa
   split the reference documents for its Float8) **plus a per-row fp32
   scale**: each vector is scaled so its absmax lands near the top of the
@@ -47,8 +47,8 @@ class Quantization(enum.IntEnum):
     BQ = 5  # reserved-but-unimplemented in the reference proto; HERE it is
             # a full mode: 1-bit sign codes + Hamming shortlist + rerank
             # (ops/bq.py, FlatStore Quantization.BQ)
-    I8 = 6  # beyond the reference: symmetric per-row int8 — rides the TPU's
-            # int8 MXU rate (~1.6x the bf16 scan on v5e), recall ~= f8
+    I8 = 6  # beyond the reference: symmetric per-row int8 — rides the
+            # int8 tensor-core rate, recall ~= f8
 
     @classmethod
     def parse(cls, v) -> "Quantization":

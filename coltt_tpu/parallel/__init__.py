@@ -3,7 +3,8 @@
 Replaces the reference's parallelism inventory (SURVEY.md §2.7): the 16-way
 goroutine shard scan becomes a corpus axis sharded over a
 ``jax.sharding.Mesh`` with per-device local top-k and an all-gather merge
-riding ICI (and DCN across hosts); the vestigial ``loadbalancer/`` package
+over the device interconnect (and the network across hosts); the
+vestigial ``loadbalancer/`` package
 becomes real data-parallel query batching over a second mesh axis.
 """
 

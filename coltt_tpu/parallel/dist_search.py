@@ -7,12 +7,12 @@ the multi-node story the reference never shipped (empty ``loadbalancer/``).
 Design (SURVEY.md §7 phase 8 / scaling-book recipe): corpus rows are
 sharded over the mesh's "shard" axis; queries ride the "batch" axis (or are
 replicated when batch=1). Under ``jax.shard_map`` each device scans only
-its local rows with the same streaming MXU kernel as single-chip, keeps a
+its local rows with the same streaming scan as single-device, keeps a
 local [Q, k] top-k (ranked on raw negated distance so euclidean's clipped
 score cannot tie far rows), then one ``lax.all_gather`` of the tiny [Q, k]
-partials over ICI + a final top-k produce the global result. The collective
-moves k*Q values per device — bytes, not the corpus — so scaling is linear
-in shards until the merge (~microseconds) dominates.
+partials over the device interconnect + a final top-k produce the global
+result. The collective moves k*Q values per device — bytes, not the
+corpus — so scaling is linear in shards until the merge dominates.
 """
 
 from __future__ import annotations
@@ -34,13 +34,7 @@ from coltt_tpu.ops.bq import (
 from coltt_tpu.ops.distance import Metric, scan_distances
 from coltt_tpu.ops.pq import PQCodebook, pq_encode, pq_scan_neg_topk, train_pq
 from coltt_tpu.ops.quant import Quantization, dequantize, quantize, storage_dtype
-from coltt_tpu.ops.scan_pallas import (
-    chunk_for,
-    fused_scan_neg_topk,
-    fused_unit_i8_neg_topk,
-    unit_i8_bin_live,
-    unit_i8_supports,
-)
+from coltt_tpu.ops.scan_pallas import ROW_TILE, fused_scan_neg_topk
 from coltt_tpu.ops.scan_pallas import supports as fused_supports
 from coltt_tpu.ops.score import normalize_score
 from coltt_tpu.ops.topk import fetch_scores_ids, rerank_neg_topk, scan_neg_topk
@@ -49,8 +43,9 @@ from coltt_tpu.parallel.mesh import BATCH_AXIS, SHARD_AXIS
 
 def _scan(queries, codes, scale, sqnorm, valid, *, k, metric, compute_dtype,
           block_rows, approx_recall, fused, final="auto"):
-    """One local scan: the fused Pallas kernel (int8 MXU + in-VMEM bin
-    selection; see ops/scan_pallas.py) or the XLA exact/ApproxTopK path.
+    """One local scan: the fused Pallas kernel (int8 tensor-core dot +
+    in-register bin selection; see ops/scan_pallas.py) or the XLA
+    exact/ApproxTopK path.
     Falls back to XLA when the kernel's shape rules don't hold."""
     if fused and not fused_supports(
         codes.shape[0], codes.shape[1], metric, codes.dtype
@@ -154,7 +149,7 @@ def sharded_scan_topk(
     pq_rerank=None,  # (pqcodes P(shard), centroids repl, coarse repl|None)
     bypass_single: bool = True,  # False: run shard_map even on 1 device
     # (equivalence checks of the fused-kernel x shard_map interaction on
-    # real hardware, where multi-chip meshes don't exist — VERDICT r4 #5)
+    # a one-device mesh)
 ) -> Tuple[jax.Array, jax.Array]:
     """Global top-k over a row-sharded corpus.
 
@@ -167,10 +162,9 @@ def sharded_scan_topk(
     serving shape instead: shortlist from the f8 cache, shard-local
     exact-PQ-reconstruction rerank, merge.
     ``fused=True`` runs each local scan through the Pallas fused kernel
-    (ops/scan_pallas.py — int8 MXU path, in-VMEM bin selection; the
-    fastest serving configuration measured, ~1.4x the XLA ApproxTopK
-    path at 1M x 768d int8). Returns (scores [Q, k] on the 0-100 scale,
-    global ids [Q, k]).
+    (ops/scan_pallas.py — int8 tensor-core dot, in-register bin
+    selection). Returns (scores [Q, k] on the 0-100 scale, global ids
+    [Q, k]).
     """
     metric = Metric.parse(metric)
     if pq_rerank is not None and rr_codes is not None:
@@ -195,8 +189,7 @@ def sharded_scan_topk(
             )
             return score, ids
         # single device: the collective layer is a no-op and shard_map only
-        # adds dispatch overhead (measured 31 ms vs 6 ms per 512-query
-        # batch on v5e) — scan directly
+        # adds dispatch overhead — scan directly
         if rr_codes is None:
             negd, ids = _scan(
                 queries, codes, scale, sqnorm, valid,
@@ -287,80 +280,6 @@ def sharded_scan_topk(
     return score, ids
 
 
-def _local_unit_scan_rerank_merge(codes, bin_live, valid, rr_codes, queries,
-                                  gscale,
-                                  *, k, oversample):
-    """Unit-norm int8 cosine path: integer kernel shortlist -> invalid-row
-    mask -> local bf16 rerank -> collective merge (ops/scan_pallas.py
-    unit-i8 section). The kernel itself only masks fully-dead bins, so a
-    padding/tombstoned row sharing a live bin can win it (its zero code
-    dots to 0, which outranks negative cosines); masking against ``valid``
-    before the rerank keeps such rows out of the results."""
-    negd, ids = _unit_shortlist(codes, gscale, bin_live, valid, queries,
-                                k=k, oversample=oversample)
-    negd, ids = rerank_neg_topk(
-        queries, negd, ids, rr_codes, None,
-        k=k, metric=Metric.COSINE, compute_dtype=jnp.bfloat16,
-    )
-    return _merge_partials(negd, ids, codes.shape[0], k)
-
-
-def _unit_shortlist(codes, gscale, bin_live, valid, queries, *, k, oversample):
-    shortlist = min(max(k * oversample, k), codes.shape[0])
-    negd, ids = fused_unit_i8_neg_topk(
-        queries, codes, gscale, bin_live, k=shortlist,
-    )
-    ok = (ids >= 0) & jnp.take(valid, jnp.where(ids >= 0, ids, 0), axis=0)
-    return jnp.where(ok, negd, -jnp.inf), ids
-
-
-@partial(jax.jit, static_argnames=("mesh", "k", "oversample"))
-def sharded_unit_i8_topk(
-    mesh: Mesh,
-    codes,
-    gscale,
-    bin_live,
-    valid,
-    rr_codes,
-    queries,
-    *,
-    k: int,
-    oversample: int = 4,
-) -> Tuple[jax.Array, jax.Array]:
-    """Global cosine top-k over row-sharded unit-norm int8 codes.
-
-    The per-device scan epilogue is all-integer (no per-row FMA — the
-    global scale makes raw s32 dots the ranking key), the bf16 rerank runs
-    before the collective so gathers stay shard-local, and the merge moves
-    only [Q, k] partials. Measured on v5e (1M x 768d, Q=2048 pipelined):
-    127.3k QPS @ recall .986 vs the default fused-i8 path's 145.8k @ .991
-    — the int32 shift/max epilogue does NOT beat the f32 FMA epilogue on
-    this generation's VPU, so the default path remains fused-i8; this one
-    is kept as the simpler layout (no per-row scale/sqnorm arrays) for
-    memory-minimal deployments. Returns (scores [Q, k] 0-100, ids [Q, k]).
-    """
-    if mesh.size == 1:
-        negd, ids = _unit_shortlist(codes, gscale, bin_live, valid, queries,
-                                    k=k, oversample=oversample)
-        negd, ids = rerank_neg_topk(
-            queries, negd, ids, rr_codes, None,
-            k=k, metric=Metric.COSINE, compute_dtype=jnp.bfloat16,
-        )
-    else:
-        fn = jax.shard_map(
-            partial(_local_unit_scan_rerank_merge, k=k, oversample=oversample),
-            mesh=mesh,
-            in_specs=(P(SHARD_AXIS), P(SHARD_AXIS), P(SHARD_AXIS),
-                      P(SHARD_AXIS), P(BATCH_AXIS), P()),
-            out_specs=(P(BATCH_AXIS), P(BATCH_AXIS)),
-            check_vma=False,
-        )
-        negd, ids = fn(codes, bin_live, valid, rr_codes, queries, gscale)
-    score = jnp.where(jnp.isinf(negd), -jnp.inf,
-                      normalize_score(-negd, Metric.COSINE))
-    return score, ids
-
-
 def _local_bq_shortlist(codes, valid, rr_codes, qpacked, queries, *,
                         k, oversample, dim):
     """Per-shard BQ search: Hamming shortlist over the packed sign bits,
@@ -409,7 +328,7 @@ def sharded_bq_topk(
     """Global cosine top-k over row-sharded binary (BQ) codes.
 
     The packed corpus is 32x smaller than f32 — a 10M x 768d corpus is
-    just 960 MB of uint32 words, so the XOR+popcount scan is VPU-bound,
+    just 960 MB of uint32 words, so the XOR+popcount scan is compute-bound,
     not HBM-bound. Queries are sign-packed once up front (replicated work
     is [Q, W] — bytes); each shard shortlists k*oversample by Hamming,
     reranks locally against ``rr_codes`` (gathers stay shard-local), and
@@ -506,7 +425,8 @@ def sharded_pq_topk(
     """
     metric = Metric.parse(metric)
     if rotation is not None:
-        queries = jnp.asarray(queries, jnp.float32) @ rotation
+        queries = jnp.matmul(jnp.asarray(queries, jnp.float32), rotation,
+                             precision=lax.Precision.HIGHEST)
     if mesh.size == 1:
         negd, ids = pq_scan_neg_topk(
             queries, codes, centroids, sqnorm, valid,
@@ -702,7 +622,6 @@ class DistributedFlatIndex:
         quantization: Quantization = Quantization.NONE,
         compute_dtype=None,
         rerank_dtype=None,  # e.g. jnp.bfloat16: keep a high-precision copy
-        unit_i8: bool = False,  # all-integer cosine path (needs rerank_dtype)
     ):
         self.mesh = mesh
         self.metric = Metric.parse(metric)
@@ -717,19 +636,11 @@ class DistributedFlatIndex:
 
         n_shards = mesh.shape[SHARD_AXIS]
         n, dim = vectors.shape
-        self.unit_i8 = bool(unit_i8)
-        if self.unit_i8 and (rerank_dtype is None
-                             or not unit_i8_supports(0, dim, self.metric)):
-            raise ValueError(
-                "unit_i8 needs metric=cosine, dim % 128 == 0, dim <= 2048, "
-                "and a rerank_dtype"
-            )
         vectors = jnp.asarray(vectors, jnp.float32)  # host or device input
         # pad so every shard's local row count is a multiple of the fused
-        # kernel's largest chunk (ops/scan_pallas.py shape rule); padding
-        # rows are masked invalid and can never be returned
-        from coltt_tpu.ops.scan_pallas import _CHUNK
-        pad = (-n) % (n_shards * 2 * _CHUNK)
+        # kernel's row tile (ops/scan_pallas.py shape rule); padding rows
+        # are masked invalid and can never be returned
+        pad = (-n) % (n_shards * ROW_TILE)
         if pad:
             vectors = jnp.concatenate(
                 [vectors, jnp.zeros((pad, dim), jnp.float32)], axis=0
@@ -746,24 +657,6 @@ class DistributedFlatIndex:
             # 1-bit sign codes: [N, ceil(D/32)] uint32, 32x under f32.
             # Padding rows are all-zero words masked by `valid`.
             self.codes = jax.device_put(bq_encode(vectors), spec)
-            self.scale = None
-            self.sqnorm = None
-        elif self.unit_i8:
-            # unit-norm rows, ONE global scale: ranking is the raw int dot
-            norms = jnp.linalg.norm(vectors, axis=1, keepdims=True)
-            un = vectors / jnp.maximum(norms, 1e-30)
-            gmax = jnp.max(jnp.abs(un))
-            self.gscale = jnp.where(gmax > 0, gmax / 127.0, jnp.float32(1.0))
-            codes = jnp.round(un / self.gscale).clip(-127, 127).astype(jnp.int8)
-            # suffix padding rows are all-zero codes; their bins are masked
-            local_n = np_total // n_shards
-            chunk = chunk_for(local_n)
-            v2 = np.asarray(jax.device_get(valid)).reshape(n_shards, local_n)
-            bl = np.concatenate(
-                [unit_i8_bin_live(v2[s], chunk) for s in range(n_shards)]
-            )
-            self.bin_live = jax.device_put(jnp.asarray(bl), spec)
-            self.codes = jax.device_put(codes, spec)
             self.scale = None
             self.sqnorm = None
         else:
@@ -800,11 +693,10 @@ class DistributedFlatIndex:
         self.quantization = Quantization.BQ
         self.rerank_dtype = rerank_dtype if rr_codes is not None else None
         self.compute_dtype = jnp.bfloat16
-        self.unit_i8 = False
         n, w = packed.shape
         self.n, self.dim = n, dim
         n_shards = mesh.shape[SHARD_AXIS]
-        pad = (-n) % (n_shards * 2 * 2048)
+        pad = (-n) % (n_shards * ROW_TILE)
         if pad:
             packed = np.concatenate(
                 [packed, np.zeros((pad, w), packed.dtype)]
@@ -842,11 +734,6 @@ class DistributedFlatIndex:
             scores, ids = sharded_bq_topk(
                 self.mesh, self.codes, self.valid, self.rr_codes, jq,
                 k=k, oversample=oversample, dim=self.dim,
-            )
-        elif self.unit_i8:
-            scores, ids = sharded_unit_i8_topk(
-                self.mesh, self.codes, self.gscale, self.bin_live,
-                self.valid, self.rr_codes, jq, k=k, oversample=oversample,
             )
         else:
             scores, ids = sharded_scan_topk(

@@ -1,5 +1,5 @@
-"""Multi-host serving: distributed runtime init, hybrid ICI/DCN meshes,
-and host-local ingest assembly.
+"""Multi-host serving: distributed runtime init, host-major meshes, and
+host-local ingest assembly.
 
 This is the real version of the cluster layer the reference describes but
 never shipped (README "ARCHITECTURE" replica/shard LB + NATS JetStream;
@@ -10,16 +10,16 @@ hosts with JAX's multi-controller runtime:
 
 - every host runs the same process and calls :func:`init_distributed`;
 - :func:`make_multihost_mesh` lays the corpus ("shard") axis out so that
-  consecutive shards live on one host's chips (ICI) before crossing hosts
-  (DCN) — the per-shard scan never communicates, and the only cross-host
-  traffic is the [Q, k] partial merge (bytes, not the corpus), which DCN
-  handles easily;
+  consecutive shards live on one host's devices (within-host links)
+  before crossing hosts (the network) — the per-shard scan never
+  communicates, and the only cross-host traffic is the [Q, k] partial
+  merge (bytes, not the corpus), which the network handles easily;
 - :func:`assemble_global_rows` builds the globally-sharded [N, D] array
   from each host's local rows without ever materializing the corpus on
   one host (each host feeds only its shard — the multi-host version of
   the reference's per-shard map ingest).
 
-Single-process (tests, single chip) all of this degrades gracefully:
+Single-process (tests, one device) all of this degrades gracefully:
 init is a no-op, the mesh is the local mesh, and assembly is a device_put.
 """
 
@@ -45,9 +45,9 @@ def init_distributed(
 ) -> int:
     """Initialize the JAX multi-controller runtime; returns process count.
 
-    With no arguments, environment auto-detection is used (TPU pods set
-    the topology env vars); on a single host this is a no-op. Call before
-    any other JAX API, once per process.
+    With no arguments, JAX's environment auto-detection is used (cluster
+    schedulers it knows set the topology env vars); on a single host this
+    is a no-op. Call before any other JAX API, once per process.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
@@ -75,12 +75,12 @@ def make_multihost_mesh(*, batch: int = 1) -> Mesh:
 
     The shard axis is ordered host-by-host: shard s lives on host
     s * hosts // shards. The all-gather in the top-k merge then
-    decomposes into an ICI phase within each host and a DCN phase
-    across hosts, both on [Q, k]-sized tensors.
+    decomposes into a within-host phase and an across-host phase, both
+    on [Q, k]-sized tensors.
 
     ``batch`` > 1 carves a query-data-parallel axis out of each host's
     devices (it must divide the per-host device count so a query batch
-    never straddles DCN).
+    never straddles hosts).
     """
     devices = jax.devices()
     n = len(devices)
@@ -90,7 +90,7 @@ def make_multihost_mesh(*, batch: int = 1) -> Mesh:
     if batch > 1 and per_host % batch:
         raise ValueError(
             f"batch={batch} must divide per-host device count {per_host} "
-            "so query batches stay off DCN"
+            "so query batches stay within a host"
         )
     # jax.devices() is already process-major (host-major); keep that order
     grid = np.array(devices).reshape(n // batch, batch)

@@ -11,7 +11,7 @@ Same on-disk geometry. The framing / replay / CRC hot loops run in the
 native library (native/colttio.cpp via :mod:`coltt_tpu.native`) when it is
 available, with this module's Python loops as the bit-identical fallback
 (``COLTT_NATIVE=0`` forces them). The WAL backs the KV commit log that
-makes TPU-side mutations crash-safe: a write is acknowledged only after it
+makes device-side mutations crash-safe: a write is acknowledged only after it
 is in the log, so un-checkpointed device state can always be replayed.
 """
 

@@ -1,6 +1,6 @@
 """Index/store layer.
 
-TPU-native counterpart of the reference's L2 index layer: the four
+Accelerator-native counterpart of the reference's L2 index layer: the four
 quantized FLAT vector spaces (``edge/*_vectorstore.go``), the CFLAT
 multi-vector space (``experimental/multi_vector_vertex.go``), and the HNSW
 graph (``core/vectorindex/hnsw.go``). Mutable goroutine-sharded maps become

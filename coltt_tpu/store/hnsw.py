@@ -9,13 +9,13 @@ config surface: ef=20, efConstruction=200, m=16, mMax=m, mMax0=2m,
 levelMultiplier=1/ln(m), Simple|Heuristic, extendCandidates/keepPruned) and
 ``hnsw_commit.go`` (Commit/Load binary snapshot).
 
-TPU-native design (SURVEY.md §7 phase 7): the pointer-graph becomes
+Design (SURVEY.md §7 phase 7): the pointer-graph becomes
 fixed-shape arrays. Search compiles to a *batched* beam: all Q queries
 advance together under ``lax.while_loop``; each step expands the closest
 unexpanded beam entries per query, gathers their padded neighbor rows,
 dedups by comparison against the beam + expansion history (no [Q, N]
-visited bitmap — TPU scatter is element-serialized), scores the fresh
-frontier with one einsum (MXU), and merges via ``lax.top_k``. The
+visited bitmap — a scatter is element-serialized), scores the fresh
+frontier with one einsum, and merges via ``lax.top_k``. The
 upper-level greedy descent is likewise a batched device walk. Deleted
 vertices stay traversable (like the reference, which relinks but tolerates
 tombstones mid-search) and are filtered from results.
@@ -38,10 +38,10 @@ from typing import Dict, List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import msgpack
 import numpy as np
 
 from coltt_tpu.ops.distance import Metric
+from coltt_tpu.utils import msgcodec
 
 _SNAPSHOT_MAGIC = b"CTTHNSW1"
 
@@ -97,11 +97,15 @@ class HnswConfig:
 
 def _batched_dist(queries, vecs, sqn_q, sqn_v, metric: Metric,
                   compute_dtype=jnp.float32):
-    """queries [Q,D], vecs [Q,E,D] -> [Q,E] distances (f32 accumulation)."""
+    """queries [Q,D], vecs [Q,E,D] -> [Q,E] distances (f32 accumulation).
+    These are the distances search returns, so f32 operands ask for full
+    f32 (a GPU runs f32 matmuls as TF32 by default)."""
     dots = jnp.einsum(
         "qd,qed->qe",
         queries.astype(compute_dtype),
         vecs.astype(compute_dtype),
+        precision=(jax.lax.Precision.HIGHEST
+                   if compute_dtype == jnp.float32 else None),
         preferred_element_type=jnp.float32,
     )
     if metric == Metric.COSINE:
@@ -264,9 +268,9 @@ def _beam_search_l0(
 
     Dedup is by comparison, not a visited bitmap: a candidate is fresh iff
     it is not in the current beam and not in the expansion history
-    ([Q, expand*max_iters] ids). TPU scatter/gather over a [Q, N] bool map
+    ([Q, expand*max_iters] ids). A scatter/gather over a [Q, N] bool map
     is element-serialized and dominated the kernel (measured 34% plus it
-    capped Q*N by HBM); the compare form is pure VPU work, 3x faster at
+    capped Q*N by device memory); the compare form is pure elementwise work, 3x faster at
     50k x 256d and O(Q*ef) memory. An expanded node can never re-enter
     (history); an evicted-unexpanded node may be re-scored once — harmless.
     """
@@ -382,7 +386,7 @@ def _pow2_ceil(x: int) -> int:
 
 @partial(jax.jit, static_argnames=("cosine",))
 def _lloyd_step(xs, cents, *, cosine: bool):
-    """One Lloyd iteration, all-MXU: assignment is a matmul argmax, the
+    """One Lloyd iteration, all matrix products: assignment is a matmul argmax, the
     update a one-hot einsum. ``xs`` is f32 (unit-norm for cosine); empty
     clusters keep their previous centroid."""
     if cosine:
@@ -423,7 +427,7 @@ def _assign_spill(x, cents, *, spill: int, cosine: bool):
 def _cluster_connect(d_vecs, d_sqn, q_gids, col_gids, col_valid, *,
                      efc: int, m: int, metric: Metric, heuristic: bool,
                      keep_pruned: bool, compute_dtype):
-    """Forward-edge selection for one cluster block: ONE [rows, cols] MXU
+    """Forward-edge selection for one cluster block: ONE [rows, cols]
     contraction scores every member against the cluster's columns (members
     + spill-ins), top-efConstruction forms the candidate list, and the
     (optionally heuristic) selection picks the m forward neighbors.
@@ -545,7 +549,7 @@ class HnswIndex:
             raise ValueError("HNSW supports cosine/euclidean")
         self.config = (config or HnswConfig()).resolved()
         # storage/compute dtype of the device-side graph used by batched
-        # search (bf16 halves HBM and doubles MXU rate; accumulation stays
+        # search (bf16 halves memory and doubles the matmul rate; accumulation stays
         # f32). Host construction always computes in f32.
         self.device_dtype = device_dtype
         self._rng = np.random.default_rng(seed)
@@ -907,7 +911,7 @@ class HnswIndex:
         The sequential reference algorithm (hnsw.go:104-167, one
         searchLevel per level per insert) becomes: a small sequential host
         seed to establish the upper-level skeleton, then batches whose
-        efConstruction candidate beams run on the TPU (`_beam_search_l0`
+        efConstruction candidate beams run on the device (`_beam_search_l0`
         over every level's padded adjacency), with forward selection
         (simple top-m or the vectorized heuristic — extendCandidates is
         host-path-only) and reverse-edge insertion + pruning as vectorized
@@ -1071,7 +1075,7 @@ class HnswIndex:
     # -- clustered bulk construction (ingest-rate path) ----------------------
     def bulk_build_auto(self, vectors: np.ndarray, **kw) -> np.ndarray:
         """Builder policy for engine ingest: the HYBRID build — clustered
-        MXU candidate blocks, then one ef=32 beam-refinement round over
+        matmul candidate blocks, then one ef=32 beam-refinement round over
         the finished graph. Measured at 1M x 128d (bench_hnsw.py,
         16k-center corpus, 1024-query recall, r04):
 
@@ -1108,7 +1112,7 @@ class HnswIndex:
         seed: Optional[int] = None,
         descent_rounds: int = 0,
     ) -> np.ndarray:
-        """MXU-native batch construction: k-means partition + per-cluster
+        """Matmul-native batch construction: k-means partition + per-cluster
         dense kNN blocks + heuristic selection + one global reverse pass.
 
         Why: ``bulk_build``'s candidate beams are row-gather bound — every
@@ -1119,7 +1123,7 @@ class HnswIndex:
         assign step is one matmul, the update one one-hot einsum), and each
         cluster scores its member rows against the cluster's rows *plus
         spill-ins* (rows whose 2nd-nearest cluster is this one) in a single
-        [rows, cols] MXU contraction. Per-row candidate lists are the
+        [rows, cols] contraction. Per-row candidate lists are the
         block's top-efConstruction — two hard-won rules are load-bearing
         here: (a) candidates must run the FULL efConstruction deep
         (clamping below the data's natural cluster width strips every
@@ -1585,7 +1589,7 @@ class HnswIndex:
             "levels_bin": self._levels[:n].astype("<i4").tobytes(),
             "alive_bin": np.packbits(self._alive[:n]).tobytes(),
         }
-        hb = msgpack.packb(header, use_bin_type=True)
+        hb = msgcodec.packb(header)
         f.write(_SNAPSHOT_MAGIC)
         f.write(len(hb).to_bytes(8, "big"))
         f.write(hb)
@@ -1601,7 +1605,7 @@ class HnswIndex:
         if magic != _SNAPSHOT_MAGIC:
             raise ValueError("not an HNSW snapshot")
         hlen = int.from_bytes(f.read(8), "big")
-        h = msgpack.unpackb(f.read(hlen), raw=False)
+        h = msgcodec.unpackb(f.read(hlen))
         idx = cls(
             h["dim"],
             metric=Metric.parse(h["metric"]),

@@ -10,11 +10,11 @@ include_or_not, ratio}`` and scores each record as
 over the included query vectors (multi_vector_vertex.go:85-138), always
 shard-parallel with local PQs.
 
-TPU-native design: one dense ``[capacity, D_f]`` code array per vector
+Design: one dense ``[capacity, D_f]`` code array per vector
 field sharing a single slot axis + validity mask (so a record is one slot
 across all fields). A CFLAT search is F fused scans — one matmul per
 included field — whose normalized scores are weighted-summed elementwise
-before a single top-k. The goroutine fan-out becomes MXU batching.
+before a single top-k. The goroutine fan-out becomes query batching.
 """
 
 from __future__ import annotations
@@ -26,13 +26,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-import msgpack
 import numpy as np
 
 from coltt_tpu.ops.distance import Metric, scan_distances
 from coltt_tpu.ops.quant import Quantization, dequantize, quantize, storage_dtype
 from coltt_tpu.ops.score import normalize_score
 from coltt_tpu.store.flat import _pad_pow2, _round_capacity
+from coltt_tpu.utils import msgcodec
 
 _SNAPSHOT_MAGIC = b"CTTMVEC1"
 
@@ -58,8 +58,8 @@ def _cflat_topk_batch(field_state, queries, ratios, valid, *, k, metric,
     field_state). One matmul per field scores all Q queries against all rows;
     the weighted sum and a single top-k finish. Returns ([Q, k], [Q, k]).
 
-    The per-field scans are the same MXU contraction the single-query path
-    uses — batching queries is where the MXU utilization comes from, exactly
+    The per-field scans are the same contraction the single-query path
+    uses — batching queries is where the matrix-unit utilization comes from, exactly
     as in the FLAT serving path (SearchBatch; VERDICT r2 item 6)."""
     total = None
     for (codes, scale, sqnorm), q, r in zip(field_state, queries, ratios):
@@ -319,7 +319,7 @@ class MultiVectorStore:
         """Batch-native CFLAT search: each entry is (field, [Q, Df] query
         block, ratio%) for the *included* fields; every block must share the
         same Q. One device dispatch scores the whole batch (the per-field
-        matmul is ~flat in Q until the MXU saturates). Returns
+        matmul is ~flat in Q until the matrix units saturate). Returns
         (scores [Q, k], slots [Q, k]) with -1 slots on dead rows."""
         if not query_fields:
             raise ValueError("at least one included query vector block required")
@@ -373,7 +373,7 @@ class MultiVectorStore:
             "free": self._free,
             "pks": [[pk, slot] for pk, slot in self.pk_to_slot.items()],
         }
-        hb = msgpack.packb(header, use_bin_type=True)
+        hb = msgcodec.packb(header)
         f.write(_SNAPSHOT_MAGIC)
         f.write(len(hb).to_bytes(8, "big"))
         f.write(hb)
@@ -393,7 +393,7 @@ class MultiVectorStore:
         if magic != _SNAPSHOT_MAGIC:
             raise ValueError("not a MultiVectorStore snapshot")
         hlen = int.from_bytes(f.read(8), "big")
-        header = msgpack.unpackb(f.read(hlen), raw=False)
+        header = msgcodec.unpackb(f.read(hlen))
         store = cls(
             header["fields"],
             metric=Metric.parse(header["metric"]),

@@ -1,7 +1,7 @@
 """Quickstart: the three engines, end to end, in one script.
 
-Runs anywhere JAX runs (CPU included — takes seconds); on a TPU the same
-code serves at the numbers in README.md. Mirrors the reference's user
+Runs anywhere JAX runs (CPU included — takes seconds); on a GPU the same
+code serves at the numbers in PERF.md. Mirrors the reference's user
 journey (create -> index -> search -> filter -> persist -> reload) across
 all three modes:
 

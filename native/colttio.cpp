@@ -3,7 +3,7 @@
 // Reference parity: the reference keeps its persistence layer in Go
 // (pkg/wal segment.go chunk framing, diskv record replay) with its native
 // code reserved for SIMD distance kernels (pkg/distance/simd). In this
-// build the distance kernels live on the TPU (JAX/XLA), and the native
+// build the distance kernels live on the device (JAX/XLA), and the native
 // budget goes where the host actually burns cycles: WAL chunk
 // framing/replay and CRC, which are per-byte loops Python executes ~100x
 // slower than C++ (and the deployment hosts here are heavily throttled).

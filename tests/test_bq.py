@@ -28,7 +28,7 @@ from coltt_tpu.store.flat import FlatStore
 
 def _clustered(rng, n, d, n_clusters=32, noise=0.25):
     """Cluster-mixture corpus (i.i.d. gaussian is adversarial for every
-    shortlist method — distance concentration; ROUND_NOTES.md lesson)."""
+    shortlist method — distance concentration on i.i.d. data)."""
     centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
     which = rng.integers(0, n_clusters, n)
     x = centers[which] + noise * rng.standard_normal((n, d)).astype(np.float32)
@@ -234,7 +234,7 @@ def test_mxu_hamming_path_matches_popcount():
 
         old = bq_mod._BQ_TRANSIENT_BYTES
         try:
-            # force the blocked regime so the MXU branch engages
+            # force the blocked regime so the matmul branch engages
             bq_mod._BQ_TRANSIENT_BYTES = 1 << 18
             neg_m, ids_m = bq_scan_neg_topk(qp, codes, jnp.asarray(valid),
                                             k=k)
@@ -257,7 +257,7 @@ def test_mxu_hamming_path_matches_popcount():
 
 
 def test_mxu_capped_block_keep_preserves_shortlist():
-    """Deep-oversample fix (r5): in approx mode the MXU multi-block path
+    """Deep-oversample fix (r5): in approx mode the matmul multi-block path
     keeps only max(64, 8*kk/blocks) rows per block instead of kk — the
     kk-wide per-block selection + blocks*kk-wide final sort dominated the
     10M scan at oversample 64. With winners spread across blocks (any
@@ -275,7 +275,7 @@ def test_mxu_capped_block_keep_preserves_shortlist():
 
     old = bq_mod._BQ_TRANSIENT_BYTES
     try:
-        bq_mod._BQ_TRANSIENT_BYTES = 3 << 20  # force ~16 blocks (MXU path)
+        bq_mod._BQ_TRANSIENT_BYTES = 3 << 20  # force ~16 blocks (matmul path)
         bq_scan_neg_topk.clear_cache()
         neg_c, ids_c = map(np.asarray,
                            bq_scan_neg_topk(qp, codes, None, k=kk))

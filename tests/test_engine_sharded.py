@@ -2,7 +2,7 @@
 
 The reference's shard-parallel scan lives inside the engine its gRPC layer
 serves (edge/f16_vectorstore.go:138-170 — goroutine-per-shard + merge
-behind VertexSearch). These tests prove the TPU equivalent does too: an
+behind VertexSearch). These tests prove the device-mesh equivalent does too: an
 EdgeEngine built with a device mesh serves create -> index -> search with
 row-sharded FlatStores and shard_map collective scans, and its results
 match the single-device engine on the same data.

@@ -202,7 +202,7 @@ def test_bulk_build_requires_empty():
 
 
 def test_bulk_build_clustered_recall_and_interop():
-    """The MXU-native clustered builder (k-means blocks + heuristic select
+    """The matmul-native clustered builder (k-means blocks + heuristic select
     + spill) must reach the same recall bar as the beam builder and leave
     a mutable, snapshotable index."""
     rng = np.random.default_rng(31)

@@ -45,6 +45,44 @@ def test_bitset_roundtrip():
     np.testing.assert_array_equal(back.ids(), a.ids())
 
 
+def test_bitset_unique_keys_stay_small():
+    """One bitset per primary key: each holds one far-out slot in a word
+    or two, not a dense prefix (a 1M-row index would need ~60 GB)."""
+    bs = [Bitset() for _ in range(3)]
+    for b, slot in zip(bs, (5, 700_000, 999_999)):
+        b.set(slot)
+        assert len(b.words) == 1 and b.test(slot) and b.count() == 1
+        np.testing.assert_array_equal(b.ids(), [slot])
+        assert len(b.to_bytes()) <= 17
+        back = Bitset.from_bytes(b.to_bytes())
+        np.testing.assert_array_equal(back.ids(), [slot])
+    merged = bs[1] | bs[0]
+    np.testing.assert_array_equal(merged.ids(), [5, 700_000])
+    assert not (bs[1] & bs[2]).any()
+    np.testing.assert_array_equal(
+        Bitset.from_ids(range(1000)).andnot(bs[0]).ids()[:6], [0, 1, 2, 3, 4, 6])
+
+
+def test_bitset_window_grows_both_ways():
+    b = Bitset()
+    for i in (6400, 64, 130_000, 1):
+        b.set(i)
+    np.testing.assert_array_equal(b.ids(), [1, 64, 6400, 130_000])
+    b.clear(64)
+    assert not b.test(64) and b.test(6400) and not b.test(10**9)
+    m = b.mask(7000)
+    assert m[1] and m[6400] and m.sum() == 2
+
+
+def test_bitset_reads_flat_form():
+    """Snapshots written before the window form hold raw words from word 0
+    (length a multiple of 8): they still load."""
+    words = np.zeros(4, np.uint64)
+    words[3] = 1 << 5
+    np.testing.assert_array_equal(
+        Bitset.from_bytes(words.tobytes()).ids(), [3 * 64 + 5])
+
+
 def test_bitset_mask():
     a = Bitset.from_ids([0, 3])
     m = a.mask(5)
